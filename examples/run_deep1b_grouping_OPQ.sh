@@ -1,6 +1,6 @@
 #!/usr/bin/env bash
 # run_deep1b_grouping_OPQ
-# TPU-native equivalent of /root/reference/examples/run_deep1b_grouping_OPQ.sh.
+# JAX equivalent of /root/reference/examples/run_deep1b_grouping_OPQ.sh.
 # Canonical parameters per the reference script; paths follow the reference
 # data layout (setup_env.sh). For a filesystem-free smoke run append:
 #   -synthetic 0 -nb 200000 -nt 100000 -nq 1000

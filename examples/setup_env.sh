@@ -1,6 +1,6 @@
 #!/usr/bin/env bash
 # setup_env — prepare the data/model directory layout the example launchers
-# expect. TPU-native equivalent of /root/reference/setup_env.sh:24-66, which
+# expect. JAX equivalent of /root/reference/setup_env.sh:24-66, which
 # mounts an NFS dataset share, symlinks it as data/, creates
 # models/{SIFT1B,DEEP1B}, and optionally resets trained artifacts.
 #

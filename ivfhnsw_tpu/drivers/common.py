@@ -147,7 +147,7 @@ def get_dataset(cfg: RunConfig, synthetic_seed: int | None = None,
 
 def setup_quantizer(index, cfg: RunConfig, ds, key) -> None:
     """Centroids: load from path_centroids if present (the reference's
-    external-k-means input, README.md:56), else train on-TPU (new
+    external-k-means input, README.md:56), else train on-device (new
     capability) and save in .fvecs so reruns and the reference can load."""
     path = cfg.path_centroids
     if path and os.path.exists(path):
@@ -280,7 +280,11 @@ def eval_search(index, cfg: RunConfig, ds, search_fn=None) -> dict:
 
 
 def parse_driver_args(extra_flags=()):
-    """Reference CLI grammar + driver-local flags (e.g. -synthetic SEED)."""
+    """Reference CLI grammar + driver-local flags (e.g. -synthetic SEED).
+    Every driver starts here, so this also turns on the persistent compile
+    cache (utils.compile_cache)."""
+    from ivfhnsw_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     argv = list(sys.argv[1:])
     extras = {}
     for flag in extra_flags:

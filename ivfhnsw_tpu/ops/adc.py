@@ -1,6 +1,6 @@
 """ADC posting-list scan, XLA version.
 
-This is the TPU re-architecture of the reference's hot loop 2
+This is the dense re-architecture of the reference's hot loop 2
 (IndexIVF_HNSW.cpp:268-293): instead of walking std::vector posting lists with
 a max-heap, we
 
@@ -14,9 +14,9 @@ a max-heap, we
    (documented at IndexIVF_HNSW.cpp:206-233) as a batched LUT gather +
    top-k (:func:`adc_scan`).
 
-A Pallas kernel with VMEM-resident LUTs replaces step 2 on TPU
-(ivfhnsw_tpu.ops.pallas.adc_scan); this XLA version is the portable
-reference implementation and the correctness oracle.
+On the GPU a fused Pallas kernel (ivfhnsw_tpu.ops.adc_kernel) replaces
+step 2; this XLA version is the portable reference implementation and the
+correctness oracle. Both engines select probes with :func:`select_probes`.
 """
 
 from __future__ import annotations
@@ -26,7 +26,34 @@ import functools
 import jax
 import jax.numpy as jnp
 
+from ivfhnsw_tpu.ops.distances import streaming_topk_l2
 from ivfhnsw_tpu.ops.topk import topk_smallest
+
+
+def select_probes(queries, centroids, centroid_norms, *, nprobe: int,
+                  coarse_block: int, coarse_approx=False,
+                  coarse_recall: float = 0.95, routed=None,
+                  routed_w: int = 0,
+                  precision=jax.lax.Precision.HIGHEST):
+    """Coarse probe selection, shared by both search engines so they scan
+    the same lists: (qc_dists, probes, term1), each [B, nprobe], ascending
+    by query-centroid distance (the order the max_codes budget walks).
+
+    term1 = ||q - c||^2 - ||c||^2 (IndexIVF_HNSW.cpp:277). coarse_approx
+    is tri-state: False = exact lax.top_k, True = approx_min_k, "binned" =
+    the exact 3-pass bin-min reduction. ``routed`` (with routed_w > 0)
+    selects probes through ops.routed_coarse instead."""
+    if routed is not None and routed_w > 0:
+        from ivfhnsw_tpu.ops.routed_coarse import routed_select_ext
+        qc, probes, term1 = routed_select_ext(queries, *routed,
+                                              nprobe=nprobe, w=routed_w)
+        return qc, probes, term1
+    qc, probes = streaming_topk_l2(
+        queries, centroids, nprobe, block=coarse_block,
+        point_sqnorms=centroid_norms, precision=precision,
+        approx=coarse_approx is True, recall_target=coarse_recall,
+        exact_reduce="binned" if coarse_approx == "binned" else "topk")
+    return qc, probes, qc - jnp.take(centroid_norms, probes, axis=0)
 
 
 @functools.partial(jax.jit, static_argnames=("L",))

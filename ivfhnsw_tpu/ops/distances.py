@@ -1,9 +1,9 @@
-"""Batched distance computation in matmul form — the MXU replacement for the
+"""Batched distance computation in matmul form — the matmul replacement for the
 reference's AVX L2 kernels (utils.cpp:22-94, hnswalg.cpp:326-399) and for the
 HNSW graph walk itself (hnswalg.cpp:48-109).
 
 Everything is expressed as ``||q - c||^2 = ||q||^2 - 2 q C^T + ||c||^2`` so the
-inner product rides the MXU; top-k over large centroid sets streams centroid
+inner product rides the matrix units; top-k over large centroid sets streams centroid
 blocks through a running top-k merge instead of materializing [B, nc] scores.
 """
 
@@ -16,14 +16,12 @@ import jax.numpy as jnp
 
 from ivfhnsw_tpu.ops.topk import binned_topk_smallest, topk_smallest
 
-# Precision for argmin/assignment sweeps. On TPU the DEFAULT (bf16-input)
-# matmul quantizes near-tie distances, so argmin tie-breaks by index —
-# measured on a clustered corpus at nc=2^17: only 69% agreement with f32
-# assignment and 60x-oversized hot lists. HIGH (3-pass bf16) restores
-# f32-level fidelity (99.8% agreement, identical list balance) at ~3x the
-# default cost; HIGHEST was measured ~360x slower than HIGH on v5e for
-# large sweeps (falls off the fast MXU path) — do not use it for bulk
-# assignment.
+# Precision for argmin/assignment sweeps: HIGH (three bf16 passes). A
+# single-pass bf16 matmul quantizes near-tie distances, so argmin
+# tie-breaks by index and hot lists grow. On an NVIDIA H100, HIGH's
+# assignment agreed with HIGHEST (full f32) on 0.99989 of 2^17
+# SIFT-statistics vectors at nc=2^15 (chip_smoke.py phase 2 prints this
+# every run); HIGH's speed against HIGHEST on the card is not measured.
 ARGMIN_PRECISION = jax.lax.Precision.HIGH
 
 
@@ -32,7 +30,7 @@ def l2sqr_pairwise(x: jax.Array, y: jax.Array, y_sqnorm: jax.Array | None = None
     """Squared L2 distances between rows of x [n, d] and y [m, d] -> [n, m].
 
     ``precision`` may be a jax.lax.Precision or None; pass
-    ``jax.lax.Precision.HIGHEST`` for f32-exact results on TPU.
+    ``jax.lax.Precision.HIGHEST`` for f32-exact results.
     """
     if y_sqnorm is None:
         y_sqnorm = jnp.sum(y.astype(jnp.float32) ** 2, axis=-1)
@@ -68,26 +66,24 @@ def streaming_topk_l2(queries: jax.Array, points: jax.Array, k: int,
     in blocks of `block` rows with a running top-k merge.
 
     This is the coarse quantizer primitive: it replaces HNSW searchKnn
-    (hnswalg.h:72-101) with an exact, batched MXU sweep. Returns
+    (hnswalg.h:72-101) with an exact, batched matmul sweep. Returns
     (dists [B, k], idxs [B, k]) sorted ascending.
 
     approx=True swaps each block's exact lax.top_k for
-    jax.lax.approx_min_k(recall_target) — the TPU-native bucketed partial
-    reduction. The cross-block merge stays exact, and the result stays
+    jax.lax.approx_min_k(recall_target), a bucketed partial reduction on
+    backends that implement one (on the GPU and the CPU XLA lowers it to an
+    exact sort). The cross-block merge stays exact, and the result stays
     sorted ascending (aggregate_to_topk runs an exact top-k over the
     retained candidates), so downstream max_codes budget semantics are
-    unchanged. Measured on v5e at [512, 2^17]: exact top-k(128) costs
-    59 us/q vs 7.6 approx at 0.95 (97% probe-set overlap) — the analog of
-    the reference's approximate HNSW probe order at efSearch=80-220.
+    unchanged — the analog of the reference's approximate HNSW probe order
+    at efSearch=80-220.
 
     exact_reduce="binned" swaps each block's exact lax.top_k for the
     3-pass binned select (ops.topk.binned_topk_smallest, bin 32): the
     same result modulo equal-distance tie order (the contract every
     top-k in this codebase already carries), but the wide pass is a
-    bandwidth-bound bin-min instead of a sort. Opt-in until the
-    in-place TPU timing lands (tools/perf_probe.py coarse-reduction
-    A/B); it falls back to lax.top_k internally when kk > width/bin or
-    width % bin != 0.
+    bandwidth-bound bin-min instead of a sort. It falls back to lax.top_k
+    internally when kk > width/bin or width % bin != 0.
 
     `points` is padded internally to a multiple of `block`; padded rows get
     +inf distance.

@@ -1,4 +1,4 @@
-"""Batched Lloyd's k-means on the MXU.
+"""Batched Lloyd's k-means in matmul form.
 
 This is the trainer the reference *outsources*: coarse centroids are an input
 file produced by an external k-means tool (README.md:56,62; Parser.h:54), and
@@ -176,7 +176,7 @@ def kmeans(key, data, k: int, niter: int = 25, block_c: int = 16384,
     if n < k:
         raise ValueError(f"kmeans: n={n} < k={k}")
     # Cap the per-step [block_n, block_c] score matrix at ~1 GB f32 — at
-    # k=2^17+ an uncapped 131072 x 16384 block OOMs the 16 GB HBM.
+    # k=2^17+ an uncapped 131072 x 16384 block needs 8 GB of device memory.
     eff_c = max(128, min(block_c, -(-k // 128) * 128))
     block_n = min(block_n, max(1024, (1 << 28) // eff_c))
     block_n = min(block_n, max(8, n))

@@ -6,7 +6,7 @@ compute_inner_prod_table at IndexIVF_HNSW.cpp:98,102,262, plus the
 norm_pq = ProductQuantizer(1, 1, 8) used for 1-byte norm codes).
 
 All per-subspace problems are batched along a leading M axis so encode is
-one [n, M, dsub] x [M, ksub, dsub] distance computation on the MXU.
+one [n, M, dsub] x [M, ksub, dsub] batched distance computation.
 """
 
 from __future__ import annotations
@@ -43,11 +43,9 @@ _DECODE_CHUNK = 65536
 def _pq_decode(codes, codebooks):
     """codes [n, M] uint8 -> [n, d] f32.
 
-    The natural one-shot gather materializes an [n, M, dsub] temp whose
-    trailing dsub (typically 8) pads to a 128-lane tile on TPU — a 16x HBM
-    expansion that OOMs at n=2^21/M=16 (16 GB padded for a 1 GB result).
-    Chunking the gather with lax.map bounds the padded temp to
-    _DECODE_CHUNK rows (~512 MB) regardless of n.
+    Chunking the gather with lax.map bounds the [n, M, dsub] temp the
+    one-shot gather would materialize (a backend may pad its short
+    trailing dsub axis) to _DECODE_CHUNK rows regardless of n.
     """
     n, M = codes.shape
     _, _, dsub = codebooks.shape
@@ -78,9 +76,8 @@ def _pq_ip_luts(q, codebooks, precision=jax.lax.Precision.HIGHEST):
     B, d = q.shape
     M, ksub, dsub = codebooks.shape
     # Block-diagonal flattening turns the M tiny-contraction (dsub=8) einsums
-    # into ONE [B, d] @ [d, M*ksub] MXU matmul — the einsum form pads each
-    # dsub contraction to a 128-wide MXU pass (measured ~1.8 us/query at
-    # B=1024/M=16; the flat matmul is ~0.05).
+    # into ONE [B, d] @ [d, M*ksub] matmul instead of M matmuls with an
+    # 8-deep contraction each.
     blk = jnp.einsum("mkd,mn->mknd", codebooks,
                      jnp.eye(M, dtype=codebooks.dtype))
     cb_flat = blk.reshape(M * ksub, M * dsub)

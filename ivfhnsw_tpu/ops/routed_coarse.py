@@ -1,40 +1,27 @@
 """Two-level ROUTED coarse probe selection for large centroid sets.
 
 The search-time analog of ops.hierarchical.TwoLevelAssigner (which serves
-top-1 assignment during builds): replaces the flat approx_min_k sweep over
-all nc centroids with super-cluster routing — the TPU-native equivalent of
-the reference's HNSW graph descent (hnswalg.cpp:48-109), whose upper layers
+top-1 assignment during builds): replaces the flat sweep over all nc
+centroids with super-cluster routing — the dense equivalent of the
+reference's HNSW graph descent (hnswalg.cpp:48-109), whose upper layers
 are exactly a coarse-to-fine router over the centroid set.
-
-Why (measured on v5e, scale2 bench geometry: nc=2^17, B=1024, nprobe=128):
-
-- approx_min_k probe selection costs ~28 us/q — the REDUCTION over the full
-  [B, nc] score matrix, not the matmul, is the cost (HIGHEST-precision
-  scoring measured 29.8 vs 28.4 default: the matmul is ~0.7 us/q of it).
-- The scan schedule's per-probe metadata gather ([nc, 8] pack rows taken at
-  [B, nprobe] probe ids) costs another ~25 us/q: TPU row gathers cost
-  ~hundreds of ns PER ROW regardless of row width.
-
-Routing fixes both with the same trick — make the gathered rows BIG:
 
 1. The nc centroids are partitioned into S super-clusters (k-means over the
    centroid set, tight capacity-bounded membership: every centroid appears
    in exactly one super's block).
-2. Per super, a contiguous [cap, d+4] block packs [centroid | sqnorm |
-   list_size | tile_offset | id] for every member (f32; the three metadata
-   fields are integers < 2^24, exact in f32).
+2. Per super, a contiguous [cap, d+2] block packs [centroid | sqnorm | id]
+   for every member (f32; ids are integers < 2^24, exact in f32).
 3. A query scores the S supers (tiny matmul), takes its top-w supers, and
-   gathers w WHOLE BLOCKS — B*w gathered rows of cap*(d+4) floats each,
-   instead of B*nprobe skinny rows — then scores all w*cap member
-   candidates exactly and top-k's nprobe probes out of them.
+   gathers w WHOLE BLOCKS — B*w gathered rows of cap*(d+2) floats each —
+   then scores all w*cap member candidates exactly and top-k's nprobe
+   probes out of them.
 
-The selected probes carry exact distances (term1 is f32-faithful), their
-list sizes and tile offsets ride along in the same gather (no pack-table
-gather at all), and only the candidate CUT is approximate — the same place
-the reference accepts HNSW's approximation (its efSearch plays the role of
-our ``w``). Routing accuracy presumes mesoscale structure in the centroid
-set, like the assigner (ops/hierarchical.py KNOWN LIMIT); measure
-probe-set overlap vs the exact sweep before adopting (bench records it).
+The selected probes carry exact distances (term1 is f32-faithful), and only
+the candidate CUT is approximate — the same place the reference accepts
+HNSW's approximation (its efSearch plays the role of our ``w``). Routing
+accuracy presumes mesoscale structure in the centroid set, like the
+assigner (ops/hierarchical.py KNOWN LIMIT); measure probe-set overlap vs
+the exact sweep before adopting.
 """
 
 from __future__ import annotations
@@ -98,10 +85,8 @@ class RoutedCoarse:
     Derived data (rebuildable from the centroids + key): super centroids
     from k-means over the centroid set, plus the tight partition —
     persistable via :meth:`save`/:meth:`from_state` (the k-means at
-    nc=2^20 is worth caching between serving restarts). The per-layout
-    packed block table (which folds in list sizes and tile offsets of a
-    concrete tiled store) is built by :meth:`build_table` and cached by
-    the caller."""
+    nc=2^20 is worth caching between serving restarts). The packed block
+    table is built by :meth:`build_table` and cached by the caller."""
 
     def __init__(self, centroids, n_super: int | None = None,
                  cap_factor: float = 1.5, key=None, niter: int = 15,
@@ -149,25 +134,18 @@ class RoutedCoarse:
         np.savez(path, supers=np.asarray(self.supers, np.float32),
                  members=self.members, valid=self.valid)
 
-    def build_table(self, centroid_norms, list_sizes, tile_offsets):
-        """[S, cap, d+4] packed block table for one tiled store layout:
-        channels [centroid(d) | sqnorm | list_size | tile_offset | id].
-        Invalid (padding) slots carry +inf sqnorm (so their candidate
-        distance is +inf and they sort last) and zero size (so a padded
-        probe that does sneak past nprobe schedules zero scan slots)."""
-        sizes = np.asarray(list_sizes, np.float32)
-        toffs = np.asarray(tile_offsets, np.float32)[:self.nc]
-        if sizes.max(initial=0) >= (1 << 24) or toffs.max(initial=0) >= (1 << 24):
-            raise ValueError("list sizes / tile offsets exceed f32-exact "
-                             "range (2^24)")
+    def build_table(self, centroid_norms):
+        """[S, cap, d+2] packed block table: channels [centroid(d) | sqnorm
+        | id]. Invalid (padding) slots carry +inf sqnorm, so their
+        candidate distance is +inf and they sort last."""
+        if self.nc >= (1 << 24):
+            raise ValueError("centroid ids exceed f32-exact range (2^24)")
         cn = np.asarray(centroid_norms, np.float32)
         m = self.members
-        table = np.zeros((self.n_super, self.cap, self.d + 4), np.float32)
+        table = np.zeros((self.n_super, self.cap, self.d + 2), np.float32)
         table[:, :, :self.d] = self._centroids[m]
         table[:, :, self.d] = np.where(self.valid, cn[m], np.inf)
-        table[:, :, self.d + 1] = np.where(self.valid, sizes[m], 0.0)
-        table[:, :, self.d + 2] = np.where(self.valid, toffs[m], 0.0)
-        table[:, :, self.d + 3] = np.where(self.valid, m.astype(np.float32),
+        table[:, :, self.d + 1] = np.where(self.valid, m.astype(np.float32),
                                            0.0)
         return jnp.asarray(table)
 
@@ -175,13 +153,11 @@ class RoutedCoarse:
 @functools.partial(jax.jit, static_argnames=("nprobe", "w", "precision"))
 def routed_select_ext(queries, supers, super_sqn, table, *, nprobe: int,
                       w: int, precision=ARGMIN_PRECISION):
-    """Routed probe selection with fused schedule metadata.
+    """Routed probe selection.
 
-    queries [B, d]; supers [S, d]; super_sqn [S]; table [S, cap, d+4]
-    (see RoutedCoarse.build_table). Returns (qc_dists, probes i32, term1,
-    sizes_f, tile_off_f), all [B, nprobe], ascending by exact candidate
-    distance — probe selection and all scan-schedule metadata from ONE
-    row gather (see adc_scan._probe_schedule_fields).
+    queries [B, d]; supers [S, d]; super_sqn [S]; table [S, cap, d+2]
+    (see RoutedCoarse.build_table). Returns (qc_dists, probes i32, term1),
+    all [B, nprobe], ascending by exact candidate distance.
 
     ``w`` = supers probed per query (the efSearch analog); requires
     w * cap >= nprobe. Candidate scoring runs at ``precision`` (HIGH =
@@ -198,7 +174,7 @@ def routed_select_ext(queries, supers, super_sqn, table, *, nprobe: int,
         preferred_element_type=jnp.float32, precision=ARGMIN_PRECISION)
     _, sup = topk_smallest(super_sqn[None, :] - 2.0 * sip, w)   # [B, w]
 
-    g = jnp.take(table, sup, axis=0)                   # [B, w, cap, d+4]
+    g = jnp.take(table, sup, axis=0)                   # [B, w, cap, d+2]
     ip = jax.lax.dot_general(
         g[..., :d].reshape(B, w * cap, d), queries,
         dimension_numbers=(((2,), (1,)), ((0,), (0,))),
@@ -207,6 +183,5 @@ def routed_select_ext(queries, supers, super_sqn, table, *, nprobe: int,
     dist = term1 + g[..., d].reshape(B, w * cap)       # +inf on padding
     d2, sel = topk_smallest(dist, nprobe)
     take = lambda a: jnp.take_along_axis(a.reshape(B, w * cap), sel, axis=1)
-    probes = jnp.round(take(g[..., d + 3])).astype(jnp.int32)
-    return (d2, probes, jnp.take_along_axis(term1, sel, axis=1),
-            take(g[..., d + 1]), take(g[..., d + 2]))
+    probes = jnp.round(take(g[..., d + 1])).astype(jnp.int32)
+    return d2, probes, jnp.take_along_axis(term1, sel, axis=1)

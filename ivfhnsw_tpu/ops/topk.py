@@ -2,8 +2,8 @@
 
 These replace the reference's faiss max-heap usage (maxheap_heapify/push at
 IndexIVF_HNSW.cpp:265,282-289) with `lax.top_k` — the heap is a CPU idiom;
-on TPU a full-block sort/select is the fast path and composes with blockwise
-streaming merges.
+on an accelerator a full-block sort/select is the fast path and composes
+with blockwise streaming merges.
 """
 
 from __future__ import annotations
@@ -27,9 +27,9 @@ def topk_smallest(x: jax.Array, k: int):
 def binned_topk_smallest(x: jax.Array, k: int, bin_size: int = 32):
     """EXACT k smallest along the last axis, in three cheap passes.
 
-    ``lax.top_k`` over a wide axis is sort-bound (measured 1.4 us/query at
-    20k lanes on v5e, linear in width); the scan output this feeds on is
-    100k+ lanes at canonical geometry. Instead:
+    ``lax.top_k`` over a wide axis is sort-bound (linear in width); the
+    scan output this feeds on is 100k+ lanes at canonical geometry.
+    Instead:
 
       1. min-reduce bins of ``bin_size`` lanes (bandwidth-bound pass),
       2. exact top-k over the n/bin_size bin minima,

@@ -1,6 +1,6 @@
 """Sharded index-build step: data-parallel assign + PQ-encode over a mesh.
 
-This is the TPU analog of the reference's OpenMP `assign` sweep plus the
+This is the accelerator analog of the reference's OpenMP `assign` sweep plus the
 add_batch encode pipeline (IndexIVF_HNSW.cpp:68-72, :75-138) at pod scale:
 base-vector batches are sharded over the mesh (data parallel); the centroid
 table is sharded by range and all-gathered fsdp-style for the local top-1

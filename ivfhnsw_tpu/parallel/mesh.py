@@ -1,10 +1,11 @@
 """Device-mesh helpers.
 
 The reference has no distributed layer at all (SURVEY.md §2.4: its only
-parallelism is OpenMP threads). The TPU framework's scale-out axis is a 1-D
+parallelism is OpenMP threads). This framework's scale-out axis is a 1-D
 `jax.sharding.Mesh` over which posting lists are sharded by centroid range;
 queries fan out replicated and top-k results merge with `lax.all_gather`
-over ICI.
+(NCCL over NVLink on a multi-GPU host, which joins the cards all to all, so
+the mesh follows the algorithm alone).
 """
 
 from __future__ import annotations

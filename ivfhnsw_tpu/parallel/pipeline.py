@@ -3,7 +3,7 @@
 The reference builds 1B-vector indexes with a sequential host loop
 (test_ivfhnsw_sift1b.cpp:125-162: read a 1M batch from the .bvecs file,
 add_batch, repeat) whose assignment sweep alone takes 2-3 days
-(README.md:65). This orchestrator is the TPU-native replacement targeted at
+(README.md:65). This orchestrator is the accelerator replacement targeted at
 the "assign + encode in hours" north star (BASELINE.md):
 
     host IO (any batch iterator)

@@ -1,4 +1,4 @@
-"""Sharded IVFADC search over a TPU mesh.
+"""Sharded IVFADC search over a device mesh.
 
 Design (SURVEY.md §2.4 / §5 "distributed communication backend"):
 
@@ -8,7 +8,7 @@ Design (SURVEY.md §2.4 / §5 "distributed communication backend"):
   shard size so shapes are uniform.
 - A search step under `shard_map`:
     1. queries are replicated; each shard computes an exact local
-       top-nprobe over its centroid block (MXU sweep),
+       top-nprobe over its centroid block (matmul sweep),
     2. `all_gather` of the per-shard candidates + a global top-nprobe merge
        (every shard deterministically computes the same global probe list,
        sorted ascending by distance — the order the max_codes budget
@@ -34,7 +34,9 @@ import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from ivfhnsw_tpu.ops import adc as adc_ops
+from ivfhnsw_tpu.ops import adc_kernel
 from ivfhnsw_tpu.ops.distances import streaming_topk_l2
+from ivfhnsw_tpu.ops.pq import _pq_ip_luts
 from ivfhnsw_tpu.ops.topk import topk_smallest
 from ivfhnsw_tpu.parallel.mesh import SHARD_AXIS
 from ivfhnsw_tpu.utils.config import SearchParams
@@ -43,83 +45,13 @@ HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _shard_search_fn(nprobe, k, L, nc_loc, coarse_block, use_opq, precision,
-                     engine="xla", nch=0, interpret=False):
+                     engine="xla", n_slots=0):
     """Returns the per-shard function run under shard_map.
 
-    engine "xla": portable gather-based local scan; "pallas": the fused
-    tiled kernel for the shard-local scan (production TPU path)."""
-
-    def fn_pallas(queries, centroids, centroid_norms, codebooks,
-                  norm_centroids, R, tiles, ids_aligned, tile_offsets,
-                  list_sizes, max_codes):
-        from ivfhnsw_tpu.ops.pallas import adc_scan as pk
-        centroids = centroids[0]
-        centroid_norms = centroid_norms[0]
-        tiles, ids_aligned = tiles[0], ids_aligned[0]
-        tile_offsets, list_sizes = tile_offsets[0], list_sizes[0]
-        B = queries.shape[0]
-        sid = jax.lax.axis_index(SHARD_AXIS)
-
-        np_loc = min(nprobe, nc_loc)
-        ld, li = streaming_topk_l2(queries, centroids, np_loc,
-                                   block=coarse_block,
-                                   point_sqnorms=centroid_norms,
-                                   precision=precision)
-        gi = li + sid * nc_loc
-        all_d = jax.lax.all_gather(ld, SHARD_AXIS)
-        all_i = jax.lax.all_gather(gi, SHARD_AXIS)
-        cat_d = jnp.moveaxis(all_d, 0, 1).reshape(B, -1)
-        cat_i = jnp.moveaxis(all_i, 0, 1).reshape(B, -1)
-        qc_dists, sel = topk_smallest(cat_d, nprobe)
-        probes = jnp.take_along_axis(cat_i, sel, axis=1)
-
-        own = (probes // nc_loc) == sid
-        lp = jnp.where(own, probes - sid * nc_loc, 0)
-        own_sizes = jnp.where(own, list_sizes[lp], 0)
-        sizes = jax.lax.psum(own_sizes, SHARD_AXIS)        # global budget
-        cum_before = jnp.concatenate(
-            [jnp.zeros((B, 1), jnp.int32),
-             jnp.cumsum(sizes, axis=1)[:, :-1]], axis=1)
-        included = jnp.logical_or(max_codes <= 0, cum_before < max_codes)
-
-        own_cn = jnp.where(own, centroid_norms[lp], 0.0)
-        term1 = qc_dists - jax.lax.psum(own_cn, SHARD_AXIS)
-
-        # Local chunk schedule over owned, included probes.
-        eff = jnp.where(own & included, own_sizes, 0)
-        tcnt = (eff + pk.CHUNK - 1) // pk.CHUNK
-        bounds = jnp.cumsum(tcnt, axis=1)
-        starts = jnp.concatenate(
-            [jnp.zeros((B, 1), jnp.int32), bounds[:, :-1]], axis=1)
-        j = jnp.arange(nch, dtype=jnp.int32)
-        seg = jnp.sum((bounds[:, None, :] <= j[None, :, None])
-                      .astype(jnp.int32), axis=2)
-        seg_c = jnp.minimum(seg, nprobe - 1)
-        within = j[None, :] - jnp.take_along_axis(starts, seg_c, axis=1)
-        lp_seg = jnp.take_along_axis(lp, seg_c, axis=1)
-        tile = tile_offsets[lp_seg].astype(jnp.int32) + within
-        ln = jnp.clip(jnp.take_along_axis(eff, seg_c, axis=1)
-                      - within * pk.CHUNK, 0, pk.CHUNK)
-        valid = j[None, :] < bounds[:, -1:]
-        ct = jnp.where(valid, tile, 0)
-        cl = jnp.where(valid, ln, 0)
-        cb = jnp.where(valid, jnp.take_along_axis(term1, seg_c, axis=1), 0.0)
-
-        q_rot = queries @ R.T if use_opq else queries
-        luts_ext = pk.build_luts_ext(q_rot, codebooks, norm_centroids,
-                                     precision=precision)
-        ldists, llabels = pk.adc_search_tiles(
-            luts_ext, ct, cl, cb, tiles, ids_aligned, k, interpret=interpret)
-
-        ad = jax.lax.all_gather(ldists, SHARD_AXIS)
-        al = jax.lax.all_gather(llabels, SHARD_AXIS)
-        fd, fsel = topk_smallest(jnp.moveaxis(ad, 0, 1).reshape(B, -1), k)
-        fl = jnp.take_along_axis(jnp.moveaxis(al, 0, 1).reshape(B, -1),
-                                 fsel, axis=1)
-        return fd, fl
-
-    if engine == "pallas":
-        return fn_pallas
+    engine "xla": the portable gather-based local scan over a static
+    L-lane window; "pallas" / "pallas_interpret": the fused scan kernel
+    (ops.adc_kernel) over ``n_slots`` slots of the shard's own store —
+    compiled for the GPU, or through the Pallas interpreter."""
 
     def fn(queries, centroids, centroid_norms, codebooks, norm_centroids, R,
            codes, ids, norm_codes, offsets, max_codes):
@@ -167,42 +99,49 @@ def _shard_search_fn(nprobe, k, L, nc_loc, coarse_block, use_opq, precision,
              jnp.cumsum(sizes, axis=1)[:, :-1]], axis=1)
         included = jnp.logical_or(max_codes <= 0, cum_before < max_codes)
 
-        # 4. Local static scan window over owned, included probes.
-        eff = sizes * (included & own)
-        bounds = jnp.cumsum(eff, axis=1)
-        starts = jnp.concatenate(
-            [jnp.zeros((B, 1), jnp.int32), bounds[:, :-1]], axis=1)
-        j = jnp.arange(L, dtype=jnp.int32)
-
-        def window_one(bounds_q, starts_q, lp_q):
-            seg = jnp.searchsorted(bounds_q, j, side="right").astype(jnp.int32)
-            seg_c = jnp.minimum(seg, nprobe - 1)
-            within = j - starts_q[seg_c]
-            pos = offsets[lp_q[seg_c]].astype(jnp.int32) + within
-            valid = j < bounds_q[-1]
-            return jnp.where(valid, pos, 0), seg_c, valid
-
-        pos, seg, valid = jax.vmap(window_one)(bounds, starts, local_probe)
-
-        q_rot = queries @ R.T if use_opq else queries
-        from ivfhnsw_tpu.ops.pq import _pq_ip_luts
-        luts = _pq_ip_luts(q_rot, codebooks, precision=precision)
-
-        g_codes = jnp.take(codes, pos, axis=0)
-        g_ids = jnp.take(ids, pos, axis=0)
-        g_norm = jnp.take(norm_centroids,
-                          jnp.take(norm_codes, pos, axis=0).astype(jnp.int32),
-                          axis=0)
         # term1 per probe (centroid norms live on the owner; qc_dists are
         # replicated). Use local cnorms for owned probes only.
         own_cn = jnp.where(own, centroid_norms[local_probe], 0.0)
         term1_probe = qc_dists - jax.lax.psum(own_cn, SHARD_AXIS)
-        bias = jnp.take_along_axis(term1_probe, seg, axis=1) + g_norm
+        eff = sizes * (included & own)
+        q_rot = queries @ R.T if use_opq else queries
+        luts = _pq_ip_luts(q_rot, codebooks, precision=precision)
 
-        ldists, lsel = adc_ops.adc_scan(luts, g_codes, bias, valid, k)
-        llabels = jnp.take_along_axis(g_ids, lsel, axis=1)
-        llabels = jnp.where(jnp.isfinite(ldists), llabels,
-                            jnp.int32(-1))
+        # 4. Local scan over owned, included probes -> local top-k.
+        if engine != "xla":
+            start, length, bias = adc_kernel.slot_schedule(
+                offsets[local_probe], eff, term1_probe, n_slots=n_slots)
+            dists = adc_kernel.adc_block_scan(
+                -2.0 * luts, norm_centroids, codes, norm_codes, start,
+                length, bias, interpret=engine == "pallas_interpret")
+            ldists, llabels = adc_kernel.scan_topk(dists, start, ids, k)
+        else:
+            bounds = jnp.cumsum(eff, axis=1)
+            starts = jnp.concatenate(
+                [jnp.zeros((B, 1), jnp.int32), bounds[:, :-1]], axis=1)
+            j = jnp.arange(L, dtype=jnp.int32)
+
+            def window_one(bounds_q, starts_q, lp_q):
+                seg = jnp.searchsorted(bounds_q, j,
+                                       side="right").astype(jnp.int32)
+                seg_c = jnp.minimum(seg, nprobe - 1)
+                within = j - starts_q[seg_c]
+                pos = offsets[lp_q[seg_c]].astype(jnp.int32) + within
+                valid = j < bounds_q[-1]
+                return jnp.where(valid, pos, 0), seg_c, valid
+
+            pos, seg, valid = jax.vmap(window_one)(bounds, starts,
+                                                   local_probe)
+            g_codes = jnp.take(codes, pos, axis=0)
+            g_ids = jnp.take(ids, pos, axis=0)
+            g_norm = jnp.take(
+                norm_centroids,
+                jnp.take(norm_codes, pos, axis=0).astype(jnp.int32), axis=0)
+            bias = jnp.take_along_axis(term1_probe, seg, axis=1) + g_norm
+            ldists, lsel = adc_ops.adc_scan(luts, g_codes, bias, valid, k)
+            llabels = jnp.take_along_axis(g_ids, lsel, axis=1)
+            llabels = jnp.where(jnp.isfinite(ldists), llabels,
+                                jnp.int32(-1))
 
         # 5. Global top-k merge.
         ad = jax.lax.all_gather(ldists, SHARD_AXIS)       # [D, B, k]
@@ -277,54 +216,15 @@ class ShardedIVFADC:
             np.zeros((0, 0), np.float32), repl)
         self.max_list_size = store.max_list_size()
         self._jitted = {}
-        self._tiled = None  # built lazily for the pallas engine
-        self._shard_stores = None
-        # Keep the numpy shard views for lazy tiled construction.
-        self._np_shards = (s_codes, s_ids, s_ncodes, s_off)
 
-    def _ensure_tiled(self):
-        """Per-shard tiled mirrors, padded to uniform tile counts."""
-        if self._tiled is not None:
-            return self._tiled
-        from ivfhnsw_tpu.models.storage import (CHUNK, TILE_ROWS,
-                                                PostingListStore)
-        s_codes, s_ids, s_ncodes, s_off = self._np_shards
-        D = s_codes.shape[0]
-        shards = []
-        for s in range(D):
-            n = int(s_off[s][-1])  # trim shard padding rows
-            st = PostingListStore(
-                codes=s_codes[s][:n], ids=s_ids[s][:n],
-                norm_codes=s_ncodes[s][:n],
-                list_offsets=s_off[s], nc=self.nc_loc)
-            shards.append(st.tiled())
-        ntmax = max(int(np.asarray(t.tiles).shape[0]) for t in shards)
-        tiles = np.zeros((D, ntmax, TILE_ROWS, CHUNK), np.uint8)
-        ids_al = np.full((D, ntmax * CHUNK), -1, np.int32)
-        toff = np.zeros((D, self.nc_loc + 1), np.int32)
-        lsz = np.zeros((D, self.nc_loc), np.int32)
-        for s, t in enumerate(shards):
-            tt = np.asarray(t.tiles)
-            tiles[s, :tt.shape[0]] = tt
-            ia = np.asarray(t.ids_aligned)
-            ids_al[s, :ia.shape[0]] = ia
-            toff[s] = np.asarray(t.tile_offsets)
-            lsz[s] = np.asarray(t.list_sizes)
-        shard = NamedSharding(self.mesh, P(SHARD_AXIS))
-        self._tiled = (jax.device_put(tiles, shard),
-                       jax.device_put(ids_al, shard),
-                       jax.device_put(toff, shard),
-                       jax.device_put(lsz, shard))
-        return self._tiled
-
-    def _get_step(self, nprobe, k, L, engine, nch=0, interpret=False):
-        key = (nprobe, k, L, engine, nch, interpret)
+    def _get_step(self, nprobe, k, L, engine, n_slots):
+        key = (nprobe, k, L, engine, n_slots)
         if key not in self._jitted:
             fn = _shard_search_fn(
                 nprobe, k, L, self.nc_loc,
                 coarse_block=min(16384, self.nc_loc),
                 use_opq=self.index.do_opq, precision=HIGHEST,
-                engine=engine, nch=nch, interpret=interpret)
+                engine=engine, n_slots=n_slots)
             spec = P(SHARD_AXIS)
             repl = P()
             mapped = jax.shard_map(
@@ -337,35 +237,28 @@ class ShardedIVFADC:
         return self._jitted[key]
 
     def search(self, queries, params: SearchParams, engine: str = "auto"):
-        """engine: 'auto' (pallas on TPU else xla), 'xla', 'pallas',
-        'pallas_interpret'."""
-        if engine == "auto":
-            engine = "pallas" if jax.default_backend() == "tpu" else "xla"
-        interpret = engine == "pallas_interpret"
-        if interpret:
-            engine = "pallas"
+        """engine: resolved like IVFADCIndex.engine
+        (ops.adc_kernel.resolve_engine) — 'auto' is the scan kernel on the
+        GPU and the XLA path elsewhere."""
+        engine = adc_kernel.resolve_engine(engine, self.index.config.pq_m)
         queries = jnp.asarray(np.asarray(queries, np.float32))
         nprobe = min(params.nprobe, self.index.nc)
-        if params.scan_budget is not None:
-            L = params.scan_budget
-        elif params.max_codes and params.max_codes > 0:
-            L = -(-(params.max_codes + self.max_list_size) // 128) * 128
+        if engine != "xla":
+            L = 0
+            n_slots = adc_kernel.n_slots_for(
+                params.max_codes or 0, self.max_list_size, nprobe,
+                params.scan_budget)
         else:
-            L = -(-(self.max_list_size * nprobe) // 128) * 128
-        if engine == "pallas":
-            from ivfhnsw_tpu.ops.pallas import adc_scan as pk
-            nch = L // pk.CHUNK + nprobe + 1
-            tiles, ids_al, toff, lsz = self._ensure_tiled()
-            step = self._get_step(nprobe, params.k, L, "pallas", nch,
-                                  interpret)
-            d, l = step(queries, self.centroids, self.centroid_norms,
-                        self.codebooks, self.norm_centroids, self.R,
-                        tiles, ids_al, toff, lsz,
-                        jnp.int32(params.max_codes))
-        else:
-            step = self._get_step(nprobe, params.k, L, "xla")
-            d, l = step(queries, self.centroids, self.centroid_norms,
-                        self.codebooks, self.norm_centroids, self.R,
-                        self.codes, self.ids, self.norm_codes, self.offsets,
-                        jnp.int32(params.max_codes))
+            n_slots = 0
+            if params.scan_budget is not None:
+                L = params.scan_budget
+            elif params.max_codes and params.max_codes > 0:
+                L = -(-(params.max_codes + self.max_list_size) // 128) * 128
+            else:
+                L = -(-(self.max_list_size * nprobe) // 128) * 128
+        step = self._get_step(nprobe, params.k, L, engine, n_slots)
+        d, l = step(queries, self.centroids, self.centroid_norms,
+                    self.codebooks, self.norm_centroids, self.R,
+                    self.codes, self.ids, self.norm_codes, self.offsets,
+                    jnp.int32(params.max_codes))
         return np.asarray(d), np.asarray(l)

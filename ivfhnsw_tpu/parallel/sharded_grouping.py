@@ -34,126 +34,8 @@ HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _shard_grouping_fn(nprobe, k, L, nsubc, nc_loc, coarse_block, use_opq,
-                       do_pruning, precision, engine="xla", nch=0,
-                       interpret=False):
-    """engine "xla": portable gather-based local scan; "pallas": the fused
-    group-tiled kernel (ops.pallas.grouping_scan) for the shard-local scan —
-    the same production engine the single-chip flagship path runs, so a
-    real mesh serves the flagship *variant* with the flagship *kernel*."""
-
-    def fn_pallas(queries, all_centroids, all_cnorms, codebooks,
-                  norm_centroids, R, tiles, ids_aligned, tile_offsets,
-                  sub_offsets, nn_idxs, alphas, inter_dists, max_codes):
-        from ivfhnsw_tpu.ops.pallas import grouping_scan as gs
-        from ivfhnsw_tpu.ops.topk import binned_topk_smallest
-        tiles, ids_aligned = tiles[0], ids_aligned[0]
-        tile_offsets, sub_offsets = tile_offsets[0], sub_offsets[0]
-        nn_idxs, alphas, inter_dists = nn_idxs[0], alphas[0], inter_dists[0]
-
-        B = queries.shape[0]
-        sid = jax.lax.axis_index(SHARD_AXIS)
-
-        # 1-3. Coarse merge + grouping terms + global pruning threshold +
-        # global budget — identical collective structure to the XLA engine.
-        lo = sid * nc_loc
-        local_cents = jax.lax.dynamic_slice_in_dim(all_centroids, lo, nc_loc)
-        local_norms = jax.lax.dynamic_slice_in_dim(all_cnorms, lo, nc_loc)
-        ld, li = streaming_topk_l2(queries, local_cents,
-                                   min(nprobe, nc_loc), block=coarse_block,
-                                   point_sqnorms=local_norms,
-                                   precision=precision)
-        all_d = jax.lax.all_gather(ld, SHARD_AXIS)
-        all_i = jax.lax.all_gather(li + lo, SHARD_AXIS)
-        cat_d = jnp.moveaxis(all_d, 0, 1).reshape(B, -1)
-        cat_i = jnp.moveaxis(all_i, 0, 1).reshape(B, -1)
-        qc_dists, sel = topk_smallest(cat_d, nprobe)
-        probes = jnp.take_along_axis(cat_i, sel, axis=1)
-
-        own = (probes // nc_loc) == sid
-        lp = jnp.where(own, probes - lo, 0)
-
-        p_nn = nn_idxs[lp]
-        q_sq = jnp.sum(queries ** 2, axis=1)
-
-        def nn_dist_one(nn_p):
-            cn = all_centroids[nn_p]
-            ip = jnp.einsum("bsd,bd->bs", cn, queries, precision=precision,
-                            preferred_element_type=jnp.float32)
-            return q_sq[:, None] - 2.0 * ip + all_cnorms[nn_p]
-
-        qn = jnp.moveaxis(jax.lax.map(nn_dist_one,
-                                      jnp.moveaxis(p_nn, 1, 0)), 0, 1)
-
-        a = alphas[lp]
-        one_m_a = (1.0 - a)[:, :, None]
-        a_b = a[:, :, None]
-        slot0 = lp * nsubc
-        slot_ids = slot0[:, :, None] + jnp.arange(nsubc)[None, None, :]
-        all_sizes = sub_offsets[1:] - sub_offsets[:-1]
-        ssz = jnp.where(own[:, :, None],
-                        all_sizes[slot_ids].astype(jnp.int32), 0)
-        nonempty = ssz > 0
-
-        qsd = (one_m_a * qc_dists[:, :, None] + a_b * qn
-               - a_b * one_m_a * inter_dists[lp])
-        g_sizes = jax.lax.psum(jnp.sum(ssz, axis=2), SHARD_AXIS)
-        if do_pruning:
-            g_cum_before = jnp.concatenate(
-                [jnp.zeros((B, 1), jnp.int32),
-                 jnp.cumsum(g_sizes, axis=1)[:, :-1]], axis=1)
-            thr_probe = jnp.logical_or(max_codes <= 0,
-                                       g_cum_before < 2 * max_codes)
-            thr_mask = nonempty & thr_probe[:, :, None]
-            part_sum = jnp.sum(jnp.where(thr_mask, qsd, 0.0), axis=(1, 2))
-            part_cnt = jnp.sum(thr_mask, axis=(1, 2))
-            tot_sum = jax.lax.psum(part_sum, SHARD_AXIS)
-            tot_cnt = jnp.maximum(jax.lax.psum(part_cnt, SHARD_AXIS), 1)
-            threshold = tot_sum / tot_cnt
-            scan_slot = nonempty & (qsd < threshold[:, None, None])
-        else:
-            scan_slot = nonempty
-
-        # Global effective sizes drive the budget gate (psum); full group
-        # window lengths drive the tile span, OWNED probes only (non-owned
-        # probes contribute zero chunks to this shard's schedule).
-        eff_global = jax.lax.psum(
-            jnp.sum(jnp.where(scan_slot, ssz, 0), axis=2), SHARD_AXIS)
-        scan_own = jnp.sum(ssz, axis=2)                       # 0 if not own
-
-        term1 = one_m_a[:, :, 0] * (qc_dists - all_cnorms[probes])
-        term2 = a_b * (qn - all_cnorms[p_nn])
-        t2_tab = jnp.full((B, nprobe, 256), jnp.inf, jnp.float32)
-        t2_tab = t2_tab.at[:, :, :nsubc].set(
-            jnp.where(scan_slot, term2, jnp.inf))
-
-        tl, bias, seg = gs.grouping_chunk_metadata(
-            lp, term1, eff_global, scan_own, tile_offsets, max_codes, nch)
-
-        q_rot = queries @ R.T if use_opq else queries
-        from ivfhnsw_tpu.ops.pallas.adc_scan import build_luts_ext
-        luts_ext = build_luts_ext(q_rot, codebooks, norm_centroids,
-                                  precision=precision)
-        dists = gs.grouping_scan_tiles(luts_ext, tl, seg, t2_tab, tiles,
-                                       interpret=interpret)
-        dists = (dists.reshape(B, nch, gs.CHUNK)
-                 + bias[:, :, None]).reshape(B, nch * gs.CHUNK)
-
-        ldists, lsel = binned_topk_smallest(dists, k, bin_size=32)
-        chunk_of = lsel // gs.CHUNK
-        within = lsel % gs.CHUNK
-        tile_sel = jnp.take_along_axis(tl // gs.TL_PACK, chunk_of, axis=1)
-        llabels = ids_aligned[tile_sel * gs.CHUNK + within]
-        llabels = jnp.where(jnp.isfinite(ldists), llabels, jnp.int32(-1))
-
-        ad = jax.lax.all_gather(ldists, SHARD_AXIS)
-        al = jax.lax.all_gather(llabels, SHARD_AXIS)
-        fd, fsel = topk_smallest(jnp.moveaxis(ad, 0, 1).reshape(B, -1), k)
-        fl = jnp.take_along_axis(jnp.moveaxis(al, 0, 1).reshape(B, -1),
-                                 fsel, axis=1)
-        return fd, fl
-
-    if engine == "pallas":
-        return fn_pallas
+                       do_pruning, precision):
+    """Per-shard grouping search (portable gather-based local scan)."""
 
     def fn(queries, all_centroids, all_cnorms, codebooks, norm_centroids, R,
            codes, ids, norm_codes, sub_offsets, nn_idxs, alphas, inter_dists,
@@ -346,59 +228,15 @@ class ShardedGrouping:
         gsz = (off2[1:] - off2[:-1]).reshape(nc, nsubc).sum(1)
         self.max_group = int(gsz.max()) if gsz.size else 0
         self._jitted = {}
-        self._tiled = None  # built lazily for the pallas engine
-        self._np_shards = (s_codes, s_ids, s_ncodes, s_off)
 
-    def _ensure_tiled(self):
-        """Per-shard GROUPED tiled mirrors (group-aligned tiles whose
-        SUBC_ROW carries subcentroid ids — storage.tiled_grouped), padded to
-        uniform tile counts across shards."""
-        if self._tiled is not None:
-            return self._tiled
-        from ivfhnsw_tpu.models.storage import (CHUNK, TILE_ROWS,
-                                                PostingListStore)
-        s_codes, s_ids, s_ncodes, s_off = self._np_shards
-        D = s_codes.shape[0]
-        shards = []
-        for s in range(D):
-            n = int(s_off[s][-1])
-            st = PostingListStore(
-                codes=s_codes[s][:n], ids=s_ids[s][:n],
-                norm_codes=s_ncodes[s][:n],
-                list_offsets=s_off[s], nc=self.nc_loc * self.nsubc)
-            shards.append(st.tiled_grouped(self.nsubc))
-        ntmax = max(int(np.asarray(t.tiles).shape[0]) for t in shards)
-        tiles = np.zeros((D, ntmax, TILE_ROWS, CHUNK), np.uint8)
-        ids_al = np.full((D, ntmax * CHUNK), -1, np.int32)
-        toff = np.zeros((D, self.nc_loc + 1), np.int32)
-        tcounts = []
-        for s, t in enumerate(shards):
-            tt = np.asarray(t.tiles)
-            tiles[s, :tt.shape[0]] = tt
-            ia = np.asarray(t.ids_aligned)
-            ids_al[s, :ia.shape[0]] = ia
-            toff[s] = np.asarray(t.tile_offsets)
-            tcounts.append(np.diff(np.asarray(t.tile_offsets)))
-        # Worst-case per-shard chunk demand for nprobe probes: the largest
-        # per-shard sum of the nprobe biggest group tile spans.
-        self._tile_counts = np.concatenate(tcounts) if tcounts else \
-            np.zeros(0, np.int64)
-        shard = NamedSharding(self.mesh, P(SHARD_AXIS))
-        self._tiled = (jax.device_put(tiles, shard),
-                       jax.device_put(ids_al, shard),
-                       jax.device_put(toff, shard))
-        return self._tiled
-
-    def _get_step(self, nprobe, k, L, do_pruning, engine="xla", nch=0,
-                  interpret=False):
-        key = (nprobe, k, L, do_pruning, engine, nch, interpret)
+    def _get_step(self, nprobe, k, L, do_pruning):
+        key = (nprobe, k, L, do_pruning)
         if key not in self._jitted:
             fn = _shard_grouping_fn(
                 nprobe, k, L, self.nsubc, self.nc_loc,
                 coarse_block=min(16384, self.nc_loc),
                 use_opq=self.index.do_opq, do_pruning=do_pruning,
-                precision=HIGHEST, engine=engine, nch=nch,
-                interpret=interpret)
+                precision=HIGHEST)
             spec = P(SHARD_AXIS)
             repl = P()
             mapped = jax.shard_map(
@@ -411,14 +249,11 @@ class ShardedGrouping:
         return self._jitted[key]
 
     def search(self, queries, params: SearchParams, engine: str = "auto"):
-        """engine: 'auto' (pallas on TPU else xla), 'xla', 'pallas',
-        'pallas_interpret' (the fused kernel through the Pallas
-        interpreter — the CPU-mesh bit-match test path)."""
-        if engine == "auto":
-            engine = "pallas" if jax.default_backend() == "tpu" else "xla"
-        interpret = engine == "pallas_interpret"
-        if interpret:
-            engine = "pallas"
+        """engine: 'auto' or 'xla' — the grouping index has no scan kernel,
+        and naming one raises instead of falling back."""
+        if engine not in ("auto", "xla"):
+            raise ValueError(f"engine {engine!r}: the grouping index has no "
+                             "scan kernel; use 'auto' or 'xla'")
         queries = jnp.asarray(np.asarray(queries, np.float32))
         nprobe = min(params.nprobe, self.index.nc)
         if params.scan_budget is not None:
@@ -427,30 +262,10 @@ class ShardedGrouping:
             L = -(-(params.max_codes + self.max_group) // 128) * 128
         else:
             L = -(-(self.max_group * nprobe) // 128) * 128
-        if engine == "pallas":
-            from ivfhnsw_tpu.ops.pallas import grouping_scan as gs
-            tiles, ids_al, toff = self._ensure_tiled()
-            tc = np.sort(self._tile_counts)
-            top_demand = int(tc[-min(nprobe, tc.size):].sum()) if tc.size \
-                else 0
-            if (params.max_codes and params.max_codes > 0
-                    and not params.do_pruning):
-                nch = min(L // gs.CHUNK + nprobe + 1, top_demand)
-            else:
-                nch = top_demand
-            if params.scan_budget is not None:
-                nch = min(nch, -(-params.scan_budget // gs.CHUNK))
-            step = self._get_step(nprobe, params.k, L, params.do_pruning,
-                                  "pallas", max(nch, 1), interpret)
-            d, l = step(queries, self.centroids, self.cnorms, self.codebooks,
-                        self.norm_centroids, self.R, tiles, ids_al, toff,
-                        self.sub_offsets, self.nn_idxs, self.alphas,
-                        self.inter_dists, jnp.int32(params.max_codes))
-        else:
-            step = self._get_step(nprobe, params.k, L, params.do_pruning)
-            d, l = step(queries, self.centroids, self.cnorms, self.codebooks,
-                        self.norm_centroids, self.R, self.codes, self.ids,
-                        self.norm_codes, self.sub_offsets, self.nn_idxs,
-                        self.alphas, self.inter_dists,
-                        jnp.int32(params.max_codes))
+        step = self._get_step(nprobe, params.k, L, params.do_pruning)
+        d, l = step(queries, self.centroids, self.cnorms, self.codebooks,
+                    self.norm_centroids, self.R, self.codes, self.ids,
+                    self.norm_codes, self.sub_offsets, self.nn_idxs,
+                    self.alphas, self.inter_dists,
+                    jnp.int32(params.max_codes))
         return np.asarray(d), np.asarray(l)

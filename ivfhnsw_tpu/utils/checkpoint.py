@@ -5,7 +5,7 @@ graph files, faiss PQ files, precomputed-assignment batches, and the .index
 posting-list format — all reproduced bit-compatibly elsewhere in this
 package (models/ivfadc.py write/read, drivers/common.py stage gating).
 
-This module adds the TPU-native layer on top: a *whole-index checkpoint
+This module adds the accelerator-side layer on top: a *whole-index checkpoint
 directory* of flat arrays + a JSON manifest, with optional per-shard layout
 for mesh-sharded deployments (one shard file per device, the orbax/zarr
 pattern without requiring either at runtime). Fast (no per-list framing),

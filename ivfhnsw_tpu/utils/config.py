@@ -67,17 +67,17 @@ class SearchParams:
                                 # (IndexIVF_HNSW.cpp:290-292 semantics)
     efSearch: int = 80          # no-op for the exact quantizer; kept for config parity
     do_pruning: bool = False    # grouping-scheme subcentroid pruning
-    # TPU-specific: padded scan length per query. None -> derived from
-    # max_codes + expected max list length at jit time.
+    # Padded scan length per query (lanes of the static scan window; both
+    # engines). None -> derived from max_codes + the longest list.
     scan_budget: Optional[int] = None
     # Coarse probe selection. "exact" = full lax.top_k over all centroids;
-    # "approx" = jax.lax.approx_min_k (TPU-native partial reduction; the
-    # analog of the reference's approximate HNSW probe selection, whose
-    # efSearch is likewise a recall knob); "routed" = two-level super-block
-    # routing (ops.routed_coarse — requires index.enable_routed_coarse());
-    # "auto" = exact for nc <= 16384, above that routed when the structure
-    # exists else approx (measured on v5e at nc=2^17: exact top-k costs
-    # 59 us/q vs 7.6 approx at coarse_recall=0.95 with 97% overlap).
+    # "approx" = jax.lax.approx_min_k (a partial reduction where the
+    # backend has one, an exact sort on the GPU and the CPU; the analog of
+    # the reference's approximate HNSW probe selection, whose efSearch is
+    # likewise a recall knob); "binned" = the exact 3-pass bin-min select;
+    # "routed" = two-level super-block routing (ops.routed_coarse —
+    # requires index.enable_routed_coarse()); "auto" = exact for
+    # nc <= 16384, above that routed when the structure exists else approx.
     coarse_mode: str = "auto"
     coarse_recall: float = 0.95  # approx_min_k recall target
 

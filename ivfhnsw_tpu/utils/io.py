@@ -317,7 +317,7 @@ def prefetch(iterable, depth: int = 2):
 
     The reference's add loop is strictly sequential: read a 1M-vector batch
     from the .bvecs file, then encode it, then read the next
-    (test_ivfhnsw_sift1b.cpp:125-162). On TPU the encode step runs on the
+    (test_ivfhnsw_sift1b.cpp:125-162). On the accelerator the encode step runs on the
     device, so host file IO + xvec decode (native C decoder — the GIL is
     released for the duration of the call) can fully overlap with it; this
     wrapper is what the build drivers and ``StreamedIndexBuild`` consumers

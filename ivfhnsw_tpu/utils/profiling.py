@@ -6,7 +6,7 @@ Here:
 
 - :class:`StageTimer` — named stage timing with a report, the structured
   version of the drivers' progress prints;
-- :func:`device_trace` — context manager around jax.profiler for XLA/TPU
+- :func:`device_trace` — context manager around jax.profiler for XLA device
   traces viewable in TensorBoard/Perfetto;
 - :class:`Counters` — the dist_calc analog: explicit counts carried as
   search outputs (codes scanned, lists probed) accumulate here.
@@ -42,7 +42,7 @@ class StageTimer:
 
 @contextlib.contextmanager
 def device_trace(logdir: str):
-    """Capture a JAX device profile (TPU trace) for the enclosed block."""
+    """Capture a JAX device profile (device trace) for the enclosed block."""
     import jax
     jax.profiler.start_trace(logdir)
     try:

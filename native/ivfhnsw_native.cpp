@@ -1,6 +1,6 @@
 // Native host-side data plane for ivfhnsw_tpu.
 //
-// The reference engine is entirely C++ (SURVEY.md §2); in the TPU
+// The reference engine is entirely C++ (SURVEY.md §2); in the JAX
 // re-architecture the device compute is JAX/XLA/Pallas, and C++ carries the
 // host-side hot paths that feed it at 10^9-vector scale:
 //

@@ -1,6 +1,7 @@
-"""Doc-number integrity (VERDICT r3 item 8): README's benchmark table
-must be exactly what tools/render_results.py generates from the
-committed artifact snapshot — stale hand-edited numbers fail here."""
+"""bench.py's artifact contract: every stage is either measured in this run
+or reads "not measured" — no number from another run is filled in — under
+any budget, stage filter or termination. BENCH_FORCE_CPU keeps these runs
+on the CPU backend."""
 
 import os
 import subprocess
@@ -9,58 +10,26 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def test_readme_bench_table_matches_artifact():
-    r = subprocess.run(
-        [sys.executable, os.path.join(ROOT, "tools", "render_results.py"),
-         "--check"], capture_output=True, text=True)
-    assert r.returncode == 0, r.stdout + r.stderr
-
-
-def test_backfill_skipped_stage_from_committed_record():
-    """A budget-skipped stage's fields backfill from the committed record
-    snapshots with explicit committed-record provenance, and never
-    overwrite a value the run actually measured."""
+def test_skipped_stage_reads_not_measured():
+    """A stage this run did not measure is stamped "not measured" and
+    gains no other field; a stamp never overwrites a measured stage's."""
     sys.path.insert(0, ROOT)
     import bench
 
-    result = {"scale4_qps_nprobe128_mc100k": 123.0}  # "measured" this run
-    assert bench.backfill_stage(result, "scale4")
-    # measured value wins over the record
-    assert result["scale4_qps_nprobe128_mc100k"] == 123.0
-    # record fields arrive with provenance
-    assert result["scale4_source"] == "committed-record"
-    assert result["scale4_record_file"] == "RESULTS_SCALE4.json"
-    assert "scale4_recorded_at" in result
-    assert result["scale4_recall_at_1"] > 0
-
-    result2 = {}
-    assert bench.backfill_stage(result2, "scale3sl")
-    assert result2["scale3sl_source"] == "committed-record"
-    assert result2["scale3sl_nb"] > 0
-
-    # stage with no committed record: no fields invented, but an explicit
-    # unavailable marker keeps the artifact mechanically complete
-    result3 = {}
-    assert not bench.backfill_stage(result3, "nosuchstage")
-    assert result3 == {"nosuchstage_source": "unavailable"}
-
-    # sibling-prefix isolation: backfilling "grouping" must never swallow
-    # "grouping_scale_*" fields (both are stages; the prefixes collide)
-    result4 = {}
-    bench.backfill_stage(result4, "grouping")
-    assert not any(k.startswith("grouping_scale_") for k in result4
-                   if k != "grouping_scale_source")
+    result = {"scale4_qps_nprobe128_mc100k": 123.0}
+    bench.mark_not_measured(result, "grouping")
+    assert result == {"scale4_qps_nprobe128_mc100k": 123.0,
+                      "grouping_source": "not measured"}
+    result["primary_source"] = "cache"
+    bench.mark_not_measured(result, "primary")
+    assert result["primary_source"] == "cache"
 
 
 def test_bench_zero_budget_run_emits_complete_backfilled_artifact(tmp_path):
-    """bench.py under an exhausted wall-clock budget (the cache-wiped
-    driver scenario, taken to its extreme) must still emit ONE parseable
-    JSON line with every stage either measured or explicitly skipped +
-    backfilled with committed-record provenance. BENCH_FORCE_CPU keeps it
-    off the TPU so this can run in CI. BENCH_CACHE_DIR isolates the
-    subprocess's checkpoint writes: without it this test CLOBBERS the real
-    .bench_cache/last_result.json the driver falls back to on a wedged
-    device."""
+    """bench.py under an exhausted wall-clock budget must still emit ONE
+    parseable JSON line with every stage explicitly skipped and marked
+    "not measured". BENCH_CACHE_DIR isolates the subprocess's checkpoint
+    writes from the real .bench_cache."""
     import json
     env = dict(os.environ, BENCH_FORCE_CPU="1", BENCH_BUDGET_S="0",
                BENCH_CACHE_DIR=str(tmp_path))
@@ -74,63 +43,10 @@ def test_bench_zero_budget_run_emits_complete_backfilled_artifact(tmp_path):
                 "scale3sl", "scale4", "grouping_scale", "scale2", "scale3"}
     assert skipped == expected, skipped
     for st in expected:
-        # stages added this round have no committed record yet — the
-        # explicit unavailable stamp keeps the artifact complete.
-        assert res.get(f"{st}_source") in ("committed-record",
-                                           "unavailable"), st
-    # headline metric present even though nothing was measured this run
-    assert res["value"] > 0 and res["vs_baseline"] > 0
-    assert res["build_1b_source"] == "committed-record"
-
-
-def test_bench_partial_1b_spill_never_displaces_full_record(tmp_path):
-    """A bounded in-session 1B build that cleanly completed a sub-1B
-    --target publishes partial=false — the headline build_1b_* fields
-    must STILL be the committed full-1B record (monotone in processed,
-    not the partial flag), with the fresh run surfaced under
-    build_1b_latest_partial_*."""
-    import json
-    fresh = {"processed": 700_000_000, "target": 700_000_000,
-             "build_seconds": 7000.0, "vectors_per_sec": 100_000.0,
-             "fraction_of_1b": 0.7, "partial": False, "resumes": 1,
-             "match_rate": 0.9996, "drift_series": []}
-    with open(tmp_path / "build1b.json", "w") as f:
-        json.dump(fresh, f)
-    # Stamp the corpus version like warm_cache/bench would: an unstamped
-    # cache dir is version-wiped at startup, deleting the fixture.
-    sys.path.insert(0, ROOT)
-    import bench
-    (tmp_path / "corpus_version").write_text(str(bench.CORPUS_VERSION))
-    env = dict(os.environ, BENCH_FORCE_CPU="1", BENCH_BUDGET_S="0",
-               BENCH_CACHE_DIR=str(tmp_path))
-    r = subprocess.run([sys.executable, os.path.join(ROOT, "bench.py")],
-                       capture_output=True, text=True, env=env, timeout=600)
-    assert r.returncode == 0, r.stderr[-2000:]
-    res = json.loads(r.stdout.strip().split("\n")[-1])
-    assert res["build_1b_vectors"] == 1_000_000_000
-    assert res["build_1b_source"] == "committed-record"
-    assert res["build_1b_latest_partial_vectors"] == 700_000_000
-
-
-def test_bench_wedged_device_with_no_checkpoint_backfills(monkeypatch,
-                                                          capsys, tmp_path):
-    """The device-unhealthy path with NO cached checkpoint must emit the
-    committed-record backfill (with per-stage provenance), not a bare
-    zero-value stub."""
-    import json
-    sys.path.insert(0, ROOT)
-    import bench
-
-    monkeypatch.setattr(bench, "device_healthy", lambda: False)
-    # point the checkpoint path at an empty dir so no last_result exists
-    monkeypatch.setattr(bench, "CACHE", str(tmp_path))
-    bench.main()
-    line = capsys.readouterr().out.strip().split("\n")[-1]
-    res = json.loads(line)
-    assert "wedged" in res["error"]
-    assert res["primary_source"] == "committed-record"
-    assert res["scale4_source"] == "committed-record"
-    assert res["value"] > 0  # backfilled headline, provenance-marked
+        assert res.get(f"{st}_source") == "not measured", st
+    # nothing measured, so no headline number either
+    assert "value" not in res and "vs_baseline" not in res
+    assert res["build_1b_source"] == "not measured"
 
 
 def test_estimate_stage_need_partial_cache_discounts(monkeypatch, tmp_path):
@@ -203,8 +119,8 @@ def _seed_smoke_cache(tmp_path):
 
 def test_bench_smoke_stage_filter_runs_real_tiny_primary(tmp_path):
     """BENCH_SMOKE + BENCH_STAGES CI rehearsal: the primary stage runs its
-    REAL build/eval path at tiny shapes on CPU (measured, not backfilled),
-    and every other stage skips with a stage-filter marker + backfill."""
+    REAL build/eval path at tiny shapes on CPU (measured this run), and
+    every other stage skips with a stage-filter marker, "not measured"."""
     import json
     _seed_smoke_cache(tmp_path)
     env = dict(os.environ, BENCH_SMOKE="1", BENCH_FORCE_CPU="1",
@@ -222,16 +138,15 @@ def test_bench_smoke_stage_filter_runs_real_tiny_primary(tmp_path):
                             "scale3sl", "scale4", "grouping_scale",
                             "scale2", "scale3"}
     assert all(v == "stage filter" for v in skipped.values())
-    assert res["grouping_source"] == "committed-record"
+    assert res["grouping_source"] == "not measured"
 
 
 def test_bench_sigterm_midstage_emits_complete_artifact(tmp_path):
     """Round-4 verdict item 1 acceptance test: SIGTERM a BENCH_FORCE_CPU
     smoke run mid-stage. The process must exit 0 and its LAST stdout line
     must parse as JSON and be COMPLETE: every STAGES_ALL entry is either
-    measured this run (in stages_done) or stamped with <stage>_source
-    provenance (committed-record / unavailable) by the flush-time
-    backfill. Reference protocol analog: the driver prints its measured
+    measured this run (in stages_done) or stamped "not measured" by the
+    flush. Reference protocol analog: the driver prints its measured
     numbers where the harness captures them (test_ivfhnsw_sift1b.cpp:
     188-215)."""
     import json

@@ -73,7 +73,10 @@ def test_alpha_matches_reference_math(built):
 
 
 def grouping_oracle(idx, queries, nprobe, k, max_codes=0, do_pruning=False):
-    """Numpy implementation of the reference Grouping search (:188-363)."""
+    """Numpy implementation of the reference Grouping search (:188-363).
+    Under OPQ the LUTs take the rotated query (the reference rotates the
+    query before compute_inner_prod_table)."""
+    R = np.asarray(idx.opq_R) if idx.do_opq else None
     C = np.asarray(idx.centroids)
     cn = (C ** 2).sum(1)
     cb = np.asarray(idx.pq.codebooks)
@@ -94,7 +97,8 @@ def grouping_oracle(idx, queries, nprobe, k, max_codes=0, do_pruning=False):
     for q in queries:
         qc = ((q[None] - C) ** 2).sum(1)
         probes = np.argsort(qc)[:nprobe]
-        lut = np.einsum("md,mkd->mk", q.reshape(M, dsub), cb)
+        q_rot = q @ R.T if R is not None else q
+        lut = np.einsum("md,mkd->mk", q_rot.reshape(M, dsub), cb)
         # threshold pass
         threshold = 0.0
         qsd_all = np.zeros((nprobe, S))

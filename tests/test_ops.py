@@ -169,7 +169,7 @@ def test_streaming_topk_approx_mode(rng):
     """approx=True (the large-nc coarse probe-selection mode,
     SearchParams.coarse_mode) keeps the sorted-ascending contract and on
     the CPU backend matches the exact path (approx_min_k falls back to an
-    exact reduction off-TPU)."""
+    exact sort on the CPU)."""
     import jax.numpy as jnp
     from ivfhnsw_tpu.ops.distances import streaming_topk_l2
 

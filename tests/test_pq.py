@@ -112,7 +112,7 @@ def test_opq_beats_plain_pq(rng):
 
 def test_pq_decode_chunked_matches_direct(rng):
     # The decode gather is chunked at _DECODE_CHUNK rows to bound the
-    # 16x-padded [n, M, dsub] temp on TPU; every chunk-boundary shape
+    # [n, M, dsub] temp; every chunk-boundary shape
     # (below, exact multiple, multiple + ragged tail) must decode
     # identically to the direct gather.
     from ivfhnsw_tpu.ops.pq import _DECODE_CHUNK, _pq_decode

@@ -47,15 +47,14 @@ def test_full_w_matches_exact_sweep():
     cents = _clustered_centroids(nc=384, d=16)
     nc = cents.shape[0]
     rng = np.random.RandomState(7)
-    sizes = rng.randint(1, 2000, nc).astype(np.int32)
-    toffs = np.cumsum(np.concatenate([[0], sizes[:-1]])).astype(np.int32)
     rc = RoutedCoarse(cents, n_super=12, key=jax.random.PRNGKey(2))
     cn = (cents ** 2).sum(1)
-    table = rc.build_table(cn, sizes, toffs)
+    table = rc.build_table(cn)
+    assert table.shape == (rc.n_super, rc.cap, 16 + 2)
     q = rng.randn(24, 16).astype(np.float32)
 
     nprobe = 10
-    d2, probes, term1, sz_f, toff_f = routed_select_ext(
+    d2, probes, term1 = routed_select_ext(
         jnp.asarray(q), rc.supers, rc.super_sqn, table,
         nprobe=nprobe, w=rc.n_super)
     ed, ei = streaming_topk_l2(jnp.asarray(q), jnp.asarray(cents), nprobe,
@@ -66,12 +65,7 @@ def test_full_w_matches_exact_sweep():
     for i in range(q.shape[0]):
         assert set(np.asarray(probes)[i].tolist()) == set(
             np.asarray(ei)[i].tolist())
-    # Fused metadata channels must agree with a direct lookup.
     p = np.asarray(probes)
-    np.testing.assert_array_equal(np.asarray(sz_f).astype(np.int64),
-                                  sizes[p])
-    np.testing.assert_array_equal(np.asarray(toff_f).astype(np.int64),
-                                  toffs[p])
     # term1 = qc_dist - ||c||^2 (IndexIVF_HNSW.cpp:277).
     np.testing.assert_allclose(np.asarray(term1),
                                np.asarray(d2) - cn[p], rtol=1e-4, atol=1e-2)
@@ -81,14 +75,12 @@ def test_small_w_overlap_on_structured_data():
     cents = _clustered_centroids(nc=512, d=32, n_groups=16)
     rc = RoutedCoarse(cents, n_super=16, key=jax.random.PRNGKey(4))
     cn = (cents ** 2).sum(1)
-    sizes = np.full(512, 100, np.int32)
-    toffs = np.arange(512, dtype=np.int32) * 100
-    table = rc.build_table(cn, sizes, toffs)
+    table = rc.build_table(cn)
     rng = np.random.RandomState(11)
     which = rng.randint(0, 512, 64)
     q = cents[which] + rng.randn(64, 32).astype(np.float32) * 0.3
 
-    _, probes, *_ = routed_select_ext(jnp.asarray(q), rc.supers,
+    _, probes, _ = routed_select_ext(jnp.asarray(q), rc.supers,
                                       rc.super_sqn, table, nprobe=8, w=4)
     _, exact = streaming_topk_l2(jnp.asarray(q), jnp.asarray(cents), 8,
                                  point_sqnorms=jnp.asarray(cn))
@@ -101,8 +93,7 @@ def test_small_w_overlap_on_structured_data():
 def test_w_cap_must_cover_nprobe():
     cents = _clustered_centroids(nc=128, d=16)
     rc = RoutedCoarse(cents, n_super=8, key=jax.random.PRNGKey(5))
-    table = rc.build_table((cents ** 2).sum(1),
-                           np.ones(128, np.int32), np.zeros(128, np.int32))
+    table = rc.build_table((cents ** 2).sum(1))
     with pytest.raises(ValueError, match="nprobe"):
         routed_select_ext(jnp.zeros((4, 16)), rc.supers, rc.super_sqn,
                           table, nprobe=rc.cap + 1, w=1)
@@ -125,8 +116,8 @@ def _tiny_index(nc=64, nb=20000, d=32, seed=0):
 
 
 def test_end_to_end_routed_interpret_matches_exact():
-    """Pallas-interpret engine, coarse_mode='routed' with total coverage
-    (w = n_super) == the exact engine's results."""
+    """Scan kernel (Pallas interpreter), coarse_mode='routed' with total
+    coverage (w = n_super) == the exact engine's results."""
     idx, base, rng = _tiny_index()
     idx.engine = "pallas_interpret"
     q = base[rng.randint(0, base.shape[0], 32)]

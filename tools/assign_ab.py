@@ -192,13 +192,6 @@ def main():
     with open(p + ".tmp", "w") as f:
         json.dump(out, f)
     os.replace(p + ".tmp", p)
-    if not bench.SMOKE and NB >= 1_000_000:
-        out["recorded_at"] = time.strftime("%Y-%m-%dT%H:%MZ",
-                                           time.gmtime())
-        p2 = os.path.join(bench.ROOT, "RESULTS_ASSIGN_AB.json")
-        with open(p2 + ".tmp", "w") as f:
-            json.dump(out, f, indent=1)
-        os.replace(p2 + ".tmp", p2)
 
 
 if __name__ == "__main__":
